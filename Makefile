@@ -57,10 +57,10 @@ clean:
 mind-parity:
 	python scripts/mind_parity.py --workdir /tmp/mind_parity --out artifacts/mind_parity.json
 
+.PHONY: smoke
+smoke:
+	python chip_smoke.py
+
 .PHONY: serving-bench
 serving-bench:
 	python scripts/serving_bench.py --json artifacts/serving_bench.json
-
-.PHONY: slab-bench
-slab-bench:
-	python scripts/slab_bench.py --json artifacts/slab_bench.json

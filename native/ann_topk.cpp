@@ -2,8 +2,9 @@
 //
 // The reference depends on faiss (C++) for ANN over item embeddings
 // (src/model/model_utils/TopKSearcher.py:38-47, DSSM/model.py:250-251).
-// On TPU the hot path is pure-XLA matmul+top_k (news_recsys_tpu/ops/topk.py);
-// this library is the *host/serving* fallback with no TPU attached:
+// On the accelerator the hot path is pure-XLA matmul+top_k
+// (news_recsys_tpu/ops/topk.py); this library is the *host/serving* path
+// with no accelerator attached:
 // multithreaded, blocked dot products with a bounded min-heap per query.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libann_topk.so ann_topk.cpp -lpthread

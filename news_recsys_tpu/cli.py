@@ -44,7 +44,7 @@ def cmd_fe(args):
 def cmd_train(args):
     if args.coordinator or args.num_processes:
         # must be the first JAX-touching call in the process (multi-host
-        # SPMD over a coordinator; on TPU pods omit flags for auto-detect)
+        # SPMD over a coordinator)
         from .parallel.distributed import initialize_distributed
         initialize_distributed(args.coordinator, args.num_processes, args.process_id)
     from .data.packed_dataset import PackedDataset
@@ -143,10 +143,10 @@ def _train_dssm(cfg: Config, args, train_ds):
 def _resolve_ckpt(ckpt: str) -> str:
     import glob as _glob
     if os.path.isdir(ckpt):  # experiment dir: newest per-epoch checkpoint
-        cands = sorted(_glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.msgpack"))
-                       or _glob.glob(os.path.join(ckpt, "epoch_*.msgpack")))
+        cands = sorted(_glob.glob(os.path.join(ckpt, "ckpts", "epoch_*.npz"))
+                       or _glob.glob(os.path.join(ckpt, "epoch_*.npz")))
         if not cands:
-            raise FileNotFoundError(f"No epoch_*.msgpack under {ckpt}")
+            raise FileNotFoundError(f"No epoch_*.npz under {ckpt}")
         return cands[-1]
     return ckpt
 
@@ -270,8 +270,9 @@ def cmd_predict(args):
 def cmd_serve(args):
     if args.backend == "host":
         # pin JAX to CPU before first use: the user-tower encode then runs
-        # on host too (a serving box without an accelerator), and no TPU
-        # client is initialized lazily inside request-handler threads
+        # on host too (a serving box without an accelerator), and no
+        # accelerator client is initialized lazily inside request-handler
+        # threads
         import jax
         jax.config.update("jax_platforms", "cpu")
     from .serving import CascadeRecommender, Recommender, build_cascade, serve_http
@@ -361,13 +362,13 @@ def cmd_itemcf(args):
 
 
 def cmd_convert_ckpt(args):
-    """Convert an ``epoch_*.msgpack`` checkpoint between the per-table and
+    """Convert an ``epoch_*.npz`` checkpoint between the per-table and
     arena embedding layouts (``embeddings.arena_tables``). Checkpoints are
     layout-bound because packing changes the param tree; this migrates old
     per-table checkpoints to the (default-on) arena layout and back."""
-    from .training.arena_convert import convert_msgpack
+    from .training.arena_convert import convert_checkpoint
     cfg = load_config(args.config)
-    convert_msgpack(cfg, args.input, args.output, to_arena=args.to == "arena")
+    convert_checkpoint(cfg, args.input, args.output, to_arena=args.to == "arena")
     print(f"Converted {args.input} -> {args.output} ({args.to} layout)")
 
 
@@ -403,15 +404,8 @@ def cmd_synth(args):
 
 
 def main(argv=None):
-    # Honor JAX_PLATFORMS for CLI subprocesses: some out-of-tree backend
-    # plugins ignore the env var, so mirror it into the jax config before
-    # any backend-touching call (same as tests/conftest.py).
-    if os.environ.get("JAX_PLATFORMS"):
-        import jax
-        try:
-            jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-        except Exception:
-            pass
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     parser = argparse.ArgumentParser(prog="news_recsys_tpu")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -436,7 +430,7 @@ def main(argv=None):
                    help="resume from the newest Orbax checkpoint in workdir")
     p.add_argument("--coordinator", default=None,
                    help="multi-host coordinator address host:port (run one "
-                        "process per host; omit on TPU pods for auto-detect)")
+                        "process per host)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.set_defaults(fn=cmd_train)
@@ -445,7 +439,7 @@ def main(argv=None):
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-m", "--model", default=None, help="override config model name")
     p.add_argument("--checkpoint", required=True,
-                   help="epoch_*.msgpack file or experiment dir (newest epoch used)")
+                   help="epoch_*.npz file or experiment dir (newest epoch used)")
     p.add_argument("--split", default="dev", help="feature split to score (default dev)")
     p.add_argument("--input", default=None, help="explicit .npz feature file instead of --split")
     p.add_argument("--output", default=None, help="output jsonl (default predictions.jsonl)")
@@ -462,7 +456,7 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8321)
     p.add_argument("--backend", default="auto", choices=["auto", "device", "host"])
     p.add_argument("--ranker-ckpt", default=None,
-                   help="ranker epoch_*.msgpack or experiment dir: serve the "
+                   help="ranker epoch_*.npz or experiment dir: serve the "
                         "full recall -> rank cascade")
     p.add_argument("--ranker-config", default=None,
                    help="the ranker's YAML config (required with --ranker-ckpt)")
@@ -483,8 +477,8 @@ def main(argv=None):
                        help="convert a checkpoint between per-table and arena "
                             "embedding layouts")
     p.add_argument("-c", "--config", required=True)
-    p.add_argument("--input", required=True, help="source epoch_*.msgpack")
-    p.add_argument("--output", required=True, help="destination msgpack")
+    p.add_argument("--input", required=True, help="source epoch_*.npz")
+    p.add_argument("--output", required=True, help="destination .npz")
     p.add_argument("--to", required=True, choices=["arena", "per-table"],
                    help="target layout")
     p.set_defaults(fn=cmd_convert_ckpt)

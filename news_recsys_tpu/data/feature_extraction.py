@@ -1,6 +1,6 @@
 """Feature-extraction framework: pluggable, vectorized, packed-array output.
 
-TPU-first re-design of the reference's plugin feature extractor
+Re-design of the reference's plugin feature extractor
 (``feature_extractor_base.py`` + ``feature_extractor.py``):
 
 - the reference dispatches a Python method ``feature_extractor_<name>`` per
@@ -32,7 +32,6 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import pandas as pd
-import yaml
 
 from ..config import Config
 from ..utils.logging import get_logger
@@ -515,6 +514,8 @@ class FeatureExtractionPipeline:
         self.vocab.save(str(self.out_dir))
         with open(self.out_dir / "dataset_extract_info.yaml", "w", encoding="utf-8") as f:
             import dataclasses
+
+            import yaml
             yaml.safe_dump({"name": self.cfg.name,
                             "features": dataclasses.asdict(self.cfg.features)}, f)
         logger.info(f"Feature extraction complete -> {self.out_dir}")

@@ -55,7 +55,7 @@ def random_negative_rows(cfg: Config, train_ds: PackedDataset,
     An impression-trained ranker only ever sees items an upstream system
     chose to display; its scores extrapolate poorly to corpus-level
     candidates and a naive recall->rank cascade DEGRADES HR@10 (measured:
-    0.0193 -> 0.0089, artifacts/cascade_eval_r05.json). Mixing in random
+    0.0193 -> 0.0089, artifacts/cascade_disposition_r05.json). Mixing in random
     corpus negatives teaches the ranker to push never-displayed items
     below displayed ones — the standard sampled-negative fix.
     """

@@ -1,4 +1,4 @@
-"""Packed dataset + fixed-shape batch iterator (the TPU DataReader).
+"""Packed dataset + fixed-shape batch iterator (the device DataReader).
 
 Replaces the reference's per-row text-parsing ``torch.utils.data.Dataset``
 (``data_reader.py:7-115``) and Lightning DataModule (``pl_dataloader.py``)
@@ -165,7 +165,7 @@ class BatchPacker:
     ``device_put``s of contiguous matrices — instead of one gather per
     feature — and the dict of per-feature views is re-assembled **on
     device inside jit** (pure slicing, free after XLA fusion). This is what
-    keeps the TPU step from being host-bound.
+    keeps the device step from being host-bound.
 
     Column layout (static): int features first-come (sparse width 1, array
     width L), float features likewise (dense 1, masks L, label k, _valid 1).

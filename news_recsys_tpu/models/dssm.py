@@ -1,7 +1,7 @@
 """DSSM two-tower retrieval model with in-batch negatives + InfoNCE.
 
 Capability rebuild of the reference's (MovieLens-era, partially stale) DSSM
-(``src/model/recall/DSSM/model.py``), re-targeted to MIND and TPU-first:
+(``src/model/recall/DSSM/model.py``), re-targeted to MIND:
 
 - user/item towers: 4-layer MLP in->128->128->64->16 with LeakyReLU(0.2)
   (``DSSM/model.py:26-44``);
@@ -17,69 +17,61 @@ Capability rebuild of the reference's (MovieLens-era, partially stale) DSSM
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from functools import partial
+from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from ..config import Config, FeatureSchema, build_schema, table_specs
 from .embedding import EmbeddingCollection
-from .layers import Linear
+from .layers import Model, init_mlp, mlp
 
 TOWER_DIMS = (128, 128, 64, 16)
+_tower = partial(mlp, act=partial(jax.nn.leaky_relu, negative_slope=0.2))
 
 
-class Tower(nn.Module):
-    dims: Sequence[int] = TOWER_DIMS
-    negative_slope: float = 0.2
+class DSSM(Model):
+    def __init__(self, tables: Tuple[Tuple[str, Tuple[int, int]], ...],
+                 user_schema: FeatureSchema, item_schema: FeatureSchema,
+                 emb_init_scale: float = 1.0):
+        self.tables = tuple(tables)
+        self.user_schema = user_schema
+        self.item_schema = item_schema
+        self.embedder = EmbeddingCollection(self.tables, init_scale=emb_init_scale)
 
-    @nn.compact
-    def __call__(self, x):
-        n = len(self.dims)
-        for i, d in enumerate(self.dims):
-            x = Linear(d)(x)
-            if i < n - 1:
-                x = nn.leaky_relu(x, negative_slope=self.negative_slope)
-        return x
+    def init_params(self, key):
+        ke, ku, ki = jax.random.split(key, 3)
+        return {"embedder": self.embedder.init(ke),
+                "user_fc": init_mlp(ku, self.user_schema.total_dim, TOWER_DIMS),
+                "item_fc": init_mlp(ki, self.item_schema.total_dim, TOWER_DIMS)}
 
+    def user_embedding(self, p, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
+        return _tower(p["user_fc"],
+                      self.embedder.embed_batch(p["embedder"], batch, self.user_schema))
 
-class DSSM(nn.Module):
-    tables: Tuple[Tuple[str, Tuple[int, int]], ...]
-    user_schema: FeatureSchema
-    item_schema: FeatureSchema
-    emb_init_scale: float = 1.0
+    def item_embedding(self, p, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
+        return _tower(p["item_fc"],
+                      self.embedder.embed_batch(p["embedder"], batch, self.item_schema))
 
-    def setup(self):
-        self.embedder = EmbeddingCollection(tables=self.tables,
-                                            init_scale=self.emb_init_scale)
-        self.user_fc = Tower()
-        self.item_fc = Tower()
+    def __call__(self, p, batch: Dict[str, jnp.ndarray]) -> Tuple[jnp.ndarray, jnp.ndarray]:
+        return self.user_embedding(p, batch), self.item_embedding(p, batch)
 
-    def user_embedding(self, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        return self.user_fc(self.embedder.embed_batch(batch, self.user_schema))
-
-    def item_embedding(self, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        return self.item_fc(self.embedder.embed_batch(batch, self.item_schema))
-
-    def __call__(self, batch: Dict[str, jnp.ndarray]) -> Tuple[jnp.ndarray, jnp.ndarray]:
-        return self.user_embedding(batch), self.item_embedding(batch)
-
-    def towers_from_fields(self, user_fields, item_fields) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    def towers_from_fields(self, p, user_fields, item_fields) -> Tuple[jnp.ndarray, jnp.ndarray]:
         """Tower outputs from pre-built per-field embedding lists (schema
         order) — the factoring the sparse rowwise-optimizer train step uses
         to differentiate w.r.t. gathered table rows (same contract as
         ``RankerBase.forward_from_fields``)."""
-        return (self.user_fc(jnp.concatenate(user_fields, axis=1)),
-                self.item_fc(jnp.concatenate(item_fields, axis=1)))
+        return (_tower(p["user_fc"], jnp.concatenate(user_fields, axis=1)),
+                _tower(p["item_fc"], jnp.concatenate(item_fields, axis=1)))
 
 
 def build_dssm(cfg: Config) -> DSSM:
     tables = tuple(sorted(table_specs(cfg).items()))
     return DSSM(
-        tables=tables,
-        user_schema=build_schema(cfg, sorted(cfg.features.user_feature_names)),
-        item_schema=build_schema(cfg, sorted(cfg.features.item_feature_names)),
+        tables,
+        build_schema(cfg, sorted(cfg.features.user_feature_names)),
+        build_schema(cfg, sorted(cfg.features.item_feature_names)),
         emb_init_scale=cfg.embeddings.init_scale,
     )
 

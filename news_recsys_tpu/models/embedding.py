@@ -1,13 +1,13 @@
 """Embedding engine: shared, shardable tables + the sorted-name concat contract.
 
-TPU-first re-design of the reference's embedding machinery
+Re-design of the reference's embedding machinery
 (``base_model.py:141-166`` table construction, ``:262-282`` lookup/pooling,
 ``:284-308`` sorted-name gather+concat):
 
 - one parameter per *unique* table (share-aliased features reuse a table);
-- vocab row-counts are padded up to a multiple of 128 so tables tile onto
-  (8,128)/(16,128) TPU layouts and divide evenly under row-sharding
-  (``PartitionSpec('model', None)``) for any power-of-two mesh axis;
+- vocab row-counts are padded up to a multiple of 128 so tables divide
+  evenly under row-sharding (``PartitionSpec('model', None)``) for any
+  power-of-two mesh axis;
 - row 0 is the padding row: lookups multiply by ``(ids != 0)`` which makes
   both the value and the gradient of row 0 exactly zero — the functional
   equivalent of torch ``nn.Embedding(padding_idx=0)``;
@@ -22,11 +22,10 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from ..config import ARRAY, DENSE, SPARSE, Config, FeatureSchema, table_specs
+from ..config import ARRAY, DENSE, SPARSE, FeatureSchema
 
 
 def offset_ids(spec, ids):
@@ -46,7 +45,7 @@ def offset_ids(spec, ids):
 VOCAB_PAD_MULTIPLE = 128
 
 # Tables with vocab below this always stay float32 (and, on the sparse
-# optimizer path, use exact dense AdamW): their full-table HBM traffic is
+# optimizer path, use exact dense AdamW): their full-table memory traffic is
 # trivial, so low-precision storage buys nothing and costs accuracy.
 SMALL_VOCAB_THRESHOLD = 4096
 
@@ -54,7 +53,7 @@ SMALL_VOCAB_THRESHOLD = 4096
 def table_storage_dtype(table_dtype: str, vocab: int):
     """Storage dtype for a table: ``bfloat16`` applies to LARGE tables only.
 
-    bf16 halves the HBM footprint and gather/scatter traffic of the big id
+    bf16 halves the device-memory footprint and gather/scatter traffic of the big id
     tables (user 94k x 32, item 65k x 32 in the reference config) — the
     dominant memory traffic of a recsys step — while small side tables
     (category/subcategory, vocab < SMALL_VOCAB_THRESHOLD) keep full
@@ -66,64 +65,49 @@ def table_storage_dtype(table_dtype: str, vocab: int):
 
 
 def padded_vocab(vocab: int) -> int:
-    """Round vocab+1 up to a multiple of 128: tiles TPU layouts, divides
-    evenly under row-sharding, and guarantees at least one spare row above
+    """Round vocab+1 up to a multiple of 128: divides evenly under
+    row-sharding, and guarantees at least one spare row above
     all real ids (the sparse-optimizer scatter sink)."""
     return ((vocab + 1 + VOCAB_PAD_MULTIPLE - 1) // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
 
 
-def embedding_init(key, shape, dtype=jnp.float32):
-    """torch nn.Embedding default: N(0, 1); padding row zeroed."""
-    table = jax.random.normal(key, shape, dtype)
+def embedding_init(key, shape, scale: float = 1.0):
+    """N(0, scale) table with a zeroed padding row. ``scale`` 1.0 is the torch
+    ``nn.Embedding`` default the reference inherits (``embeddings.init_scale``);
+    shallow models that score directly from raw embeddings (LR/FM) need a
+    small scale to start un-saturated."""
+    table = jax.random.normal(key, shape, jnp.float32) * scale
     return table.at[0].set(0.0)
 
 
-def scaled_embedding_init(scale: float):
-    """N(0, scale) embedding init (``embeddings.init_scale``); 1.0 is the
-    torch default the reference inherits. Shallow models that score directly
-    from raw embeddings (LR/FM) need a small scale to start un-saturated."""
-    if scale == 1.0:
-        return embedding_init
-
-    def init(key, shape, dtype=jnp.float32):
-        table = jax.random.normal(key, shape, dtype) * jnp.asarray(scale, dtype)
-        return table.at[0].set(0.0)
-
-    return init
-
-
-class EmbeddingCollection(nn.Module):
-    """Owns every embedding table; provides lookup / pool / concat.
+class EmbeddingCollection:
+    """Owns every embedding table's spec; provides init / lookup / pool / concat.
 
     ``tables``: mapping table-name -> (vocab, dim), typically from
-    :func:`news_recsys_tpu.config.table_specs`.
+    :func:`news_recsys_tpu.config.table_specs`. The tables themselves are the
+    ``embedder`` subtree of a model's params, passed to every method.
     """
 
-    tables: Tuple[Tuple[str, Tuple[int, int]], ...]  # hashable static spec
-    # "float32" | "bfloat16": storage dtype for LARGE tables (see
-    # table_storage_dtype); lookups always return float32.
-    table_dtype: str = "float32"
-    # N(0, init_scale) table init; 1.0 = torch default (reference parity)
-    init_scale: float = 1.0
+    def __init__(self, tables: Tuple[Tuple[str, Tuple[int, int]], ...],
+                 table_dtype: str = "float32", init_scale: float = 1.0):
+        self.tables = tuple(tables)
+        # "float32" | "bfloat16": storage dtype for LARGE tables (see
+        # table_storage_dtype); lookups always return float32.
+        self.table_dtype = table_dtype
+        # N(0, init_scale) table init; 1.0 = torch default (reference parity)
+        self.init_scale = init_scale
 
-    def setup(self):
-        params = {}
-        init = scaled_embedding_init(self.init_scale)
-        for name, (vocab, dim) in self.tables:
-            dtype = table_storage_dtype(self.table_dtype, vocab)
-            params[name] = self.param(
-                name, init, (padded_vocab(vocab), dim), dtype)
-        self._tables = params
-
-    @staticmethod
-    def from_config(cfg: Config) -> "EmbeddingCollection":
-        return EmbeddingCollection(tables=tuple(sorted(table_specs(cfg).items())),
-                                   table_dtype=cfg.mesh.param_dtype,
-                                   init_scale=cfg.embeddings.init_scale)
+    def init(self, key) -> Dict[str, jnp.ndarray]:
+        keys = jax.random.split(key, max(len(self.tables), 1))
+        return {name: embedding_init(k, (padded_vocab(vocab), dim),
+                                     self.init_scale).astype(
+                    table_storage_dtype(self.table_dtype, vocab))
+                for k, (name, (vocab, dim)) in zip(keys, self.tables)}
 
     # -- single-feature ops -------------------------------------------------
 
-    def lookup(self, table_name: str, ids: jnp.ndarray) -> jnp.ndarray:
+    @staticmethod
+    def lookup(table: jnp.ndarray, ids: jnp.ndarray) -> jnp.ndarray:
         """Gather rows; id 0 (padding) yields exact zeros (value and grad).
 
         With an active explicit-collectives mesh
@@ -133,14 +117,13 @@ class EmbeddingCollection(nn.Module):
         """
         from ..parallel.sharded_embedding import active_mesh, sharded_lookup
 
-        table = self._tables[table_name]
         ctx = active_mesh()
         if ctx is not None:
             mesh, model_axis, data_axis = ctx
             emb = sharded_lookup(table, ids, mesh, model_axis, data_axis)
         else:
             emb = jnp.take(table, ids, axis=0)
-        # bf16-stored tables upcast after the gather: HBM reads move half the
+        # bf16-stored tables upcast after the gather: reads move half the
         # bytes, downstream field math stays float32.
         emb = emb.astype(jnp.float32)
         return emb * (ids != 0).astype(emb.dtype)[..., None]
@@ -151,21 +134,9 @@ class EmbeddingCollection(nn.Module):
         mask = mask.astype(emb.dtype)[..., None]
         return (emb * mask).sum(axis=1) / (mask.sum(axis=1) + 1e-8)
 
-    @staticmethod
-    def _use_fused_pool(table) -> bool:
-        """Route pooled array lookups through the Pallas fused kernel?
-
-        Gated off (the default) unless NRT_PALLAS enables kernels; excluded
-        under an explicit-collectives mesh (the kernel would bypass the
-        shard_map lookup) and for bf16 tables (fp32 slab tiling)."""
-        from ..ops import pallas_mode
-        from ..parallel.sharded_embedding import active_mesh
-        return (pallas_mode() != "off" and active_mesh() is None
-                and table.dtype == jnp.float32)
-
     # -- batch-level contract ----------------------------------------------
 
-    def embed_fields(self, batch: Dict[str, jnp.ndarray], schema: FeatureSchema,
+    def embed_fields(self, tables, batch: Dict[str, jnp.ndarray], schema: FeatureSchema,
                      unpooled=()):
         """Per-field embeddings in schema (sorted-name) order: list of (B, d_f).
 
@@ -174,11 +145,8 @@ class EmbeddingCollection(nn.Module):
         their raw (B, L, D) sequence instead of the masked mean (sequence
         models pool them themselves).
 
-        Lookups stay one take PER FEATURE: merging same-table gathers
-        (concat ids -> one take -> split) was measured a net loss at both
-        small and large slot counts (artifacts/arena_step_ab_r05.json,
-        arena_ab_r05.json — the split copies cost more than the saved
-        gather fixed cost).
+        Lookups stay one take per feature, also for features that share a
+        table.
         """
         parts = []
         for spec in schema.specs:
@@ -193,38 +161,25 @@ class EmbeddingCollection(nn.Module):
                         f"Sparse feature '{spec.name}' has {val.ndim}-D input "
                         f"{val.shape}; sequence features must be declared in "
                         "features.array_feature_names (with array_max_length).")
-                parts.append(self.lookup(spec.table, val))
+                parts.append(self.lookup(tables[spec.table], val))
             elif spec.kind == ARRAY:
                 if spec.name in unpooled:
-                    parts.append(self.lookup(spec.table, val))   # (B, L, D)
+                    parts.append(self.lookup(tables[spec.table], val))   # (B, L, D)
                     continue
                 mask = batch.get(f"{spec.name}_mask")
                 if mask is None:
                     mask = (val != 0)
-                table = self._tables[spec.table]
-                if self._use_fused_pool(table):
-                    # Pallas fused gather+masked-mean (NRT_PALLAS gate):
-                    # streams table rows HBM->VMEM and writes only the
-                    # (B, D) pooled result — the (B, L, D) gathered
-                    # embeddings never round-trip HBM. Exact math parity
-                    # with lookup+pool (ops/fused_lookup_pool.py; padding
-                    # id 0 carries zero value, weight, and grad).
-                    from ..ops.fused_lookup_pool import fused_lookup_pool
-                    parts.append(fused_lookup_pool(table, val, mask))
-                    continue
-                parts.append(self.pool(self.lookup(spec.table, val), mask))
+                parts.append(self.pool(self.lookup(tables[spec.table], val), mask))
             else:
                 raise ValueError(spec.kind)
         return parts
 
-    def embed_batch(self, batch: Dict[str, jnp.ndarray], schema: FeatureSchema) -> jnp.ndarray:
+    def embed_batch(self, tables, batch: Dict[str, jnp.ndarray],
+                    schema: FeatureSchema) -> jnp.ndarray:
         """Concat per-feature embeddings in schema (sorted-name) order.
 
         Returns (B, schema.total_dim) — the reference's
         ``get_embeddings_from_batch`` contract (``base_model.py:284-308``).
         """
-        return jnp.concatenate(self.embed_fields(batch, schema), axis=1)
+        return jnp.concatenate(self.embed_fields(tables, batch, schema), axis=1)
 
-
-def make_collection(cfg: Config) -> EmbeddingCollection:
-    return EmbeddingCollection.from_config(cfg)

@@ -1,9 +1,9 @@
 """Ranking model zoo: LR, Deep (DNN), Wide&Deep, FM, DCN v1/v2.
 
-Functional parity with the reference's ``src/model/sort/*`` models, designed
-as pure flax modules over the shared :class:`EmbeddingCollection`. Every
-model returns **logits** ``(B,)``; sigmoid lives in the loss / inference
-wrapper (numerically better than the reference's probability-space BCE,
+Functional parity with the reference's ``src/model/sort/*`` models, written
+as plain JAX over the shared :class:`EmbeddingCollection`. Every model
+returns **logits** ``(B,)``; sigmoid lives in the loss / inference wrapper
+(numerically better than the reference's probability-space BCE,
 mathematically identical).
 
 Slicing contracts (explicit here, implicit in the reference):
@@ -14,26 +14,43 @@ Slicing contracts (explicit here, implicit in the reference):
   1..d the deep part (``widedeep/model.py:53-69``).
 - DCN v1 cross: ``x0 · (x_l^T w) + b + x_l`` (``dcn_arch.py:5-30``), with the
   rank-1 structure exploited: ``(x0 x_l^T) w == x0 * (x_l · w)`` — a dot and
-  a broadcast instead of a BxDxD outer product, which is the TPU-friendly
-  formulation (O(BD) memory instead of O(BD²)).
+  a broadcast instead of a BxDxD outer product (O(BD) memory instead of
+  O(BD²)).
 - DCN v2: ``x0 * Linear(x_l) + x_l`` (``dcn_arch.py:33-50``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from ..config import Config, FeatureSchema, build_schema, table_specs
 from .embedding import EmbeddingCollection
-from .layers import MLP, Linear
+from .layers import Model, init_linear, init_mlp, linear, mlp
 
 DEFAULT_HIDDEN = (128, 128, 128, 64, 1)
 
 
-class RankerBase(nn.Module):
+def fm_second_order(v: jnp.ndarray) -> jnp.ndarray:
+    """(B, F, D) field latent vectors -> (B,) second-order interaction
+    ``0.5 * sum_d [(sum_f v_fd)^2 - sum_f v_fd^2]``."""
+    sum_v = jnp.sum(v, axis=1)
+    return 0.5 * jnp.sum(sum_v * sum_v - jnp.sum(v * v, axis=1), axis=1)
+
+
+def cross_v1(x0: jnp.ndarray, ws: jnp.ndarray, bs: jnp.ndarray) -> jnp.ndarray:
+    """DCN-v1 cross stack: x0 (B, D), ws (NL, D), bs (NL, D) -> (B, D) after
+    NL layers of ``x_{l+1} = x0 * (x_l . w_l) + b_l + x_l``."""
+    x = x0
+    for l in range(ws.shape[0]):
+        x = x0 * (x @ ws[l])[:, None] + bs[l] + x
+    return x
+
+
+class RankerBase(Model):
     """Shared plumbing: embedding collection + rank-feature schema.
 
     Every ranker factors as ``__call__ = forward_from_fields(embed_fields)``;
@@ -42,38 +59,36 @@ class RankerBase(nn.Module):
     (:mod:`news_recsys_tpu.training.sparse_step`).
     """
 
-    tables: Tuple[Tuple[str, Tuple[int, int]], ...]
-    schema: FeatureSchema
-
-    # array features a subclass consumes as raw (B, L, D) sequences instead
-    # of mean-pooled vectors (their masks travel via the ``masks`` argument)
-    unpooled_arrays: Tuple[str, ...] = ()
-
-    # mesh.param_dtype / mesh.compute_dtype from the config: large-table
-    # storage dtype and tower matmul dtype ("float32" | "bfloat16").
-    table_dtype: str = "float32"
-    compute_dtype: str = "float32"
-    # embeddings.init_scale: N(0, scale) table init (1.0 = torch default)
-    emb_init_scale: float = 1.0
+    def __init__(self, tables: Tuple[Tuple[str, Tuple[int, int]], ...],
+                 schema: FeatureSchema, unpooled_arrays: Tuple[str, ...] = (),
+                 table_dtype: str = "float32", compute_dtype: str = "float32",
+                 emb_init_scale: float = 1.0):
+        self.tables = tuple(tables)
+        self.schema = schema
+        # array features consumed as raw (B, L, D) sequences instead of
+        # mean-pooled vectors (their masks travel via the ``masks`` argument)
+        self.unpooled_arrays = tuple(unpooled_arrays)
+        # mesh.param_dtype / mesh.compute_dtype from the config: large-table
+        # storage dtype and tower matmul dtype ("float32" | "bfloat16").
+        self.table_dtype = table_dtype
+        self.compute_dtype = compute_dtype
+        self.embedder = EmbeddingCollection(self.tables, table_dtype, emb_init_scale)
 
     @property
     def tower_dtype(self):
         return jnp.bfloat16 if self.compute_dtype == "bfloat16" else None
 
-    def setup(self):
-        self.embedder = EmbeddingCollection(tables=self.tables,
-                                            table_dtype=self.table_dtype,
-                                            init_scale=self.emb_init_scale)
-        self._setup_tower()
+    def init_params(self, key):
+        k_emb, k_tower = jax.random.split(key)
+        return {"embedder": self.embedder.init(k_emb), **self._init_tower(k_tower)}
 
-    def _setup_tower(self):
-        raise NotImplementedError
+    def _init_tower(self, key) -> Dict:
+        return {}
 
-    def __call__(self, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
-        fields = self.embedder.embed_fields(batch, self.schema,
+    def __call__(self, p, batch: Dict[str, jnp.ndarray]) -> jnp.ndarray:
+        fields = self.embedder.embed_fields(p["embedder"], batch, self.schema,
                                             unpooled=set(self.unpooled_arrays))
-        masks = self._collect_masks(batch)
-        return self.forward_from_fields(fields, masks)
+        return self.forward_from_fields(p, fields, self._collect_masks(batch))
 
     def _collect_masks(self, batch):
         masks = {}
@@ -84,7 +99,7 @@ class RankerBase(nn.Module):
             masks[name] = m
         return masks
 
-    def forward_from_fields(self, fields, masks=None) -> jnp.ndarray:
+    def forward_from_fields(self, p, fields, masks=None) -> jnp.ndarray:
         raise NotImplementedError
 
 
@@ -94,36 +109,39 @@ class LRRanker(RankerBase):
     Reference: ``lr/model.py:17-27`` (score_fc = torch.sum over the concat).
     """
 
-    def _setup_tower(self):
-        pass
-
-    def forward_from_fields(self, fields, masks=None):
+    def forward_from_fields(self, p, fields, masks=None):
         return jnp.sum(jnp.concatenate(fields, axis=1), axis=1)
 
 
 class DeepRanker(RankerBase):
     """Concat embeddings -> MLP [128,128,128,64,1] (``deep/model.py:12-29``)."""
 
-    hidden: Sequence[int] = DEFAULT_HIDDEN
+    def __init__(self, *args, hidden: Sequence[int] = DEFAULT_HIDDEN, **kw):
+        super().__init__(*args, **kw)
+        self.hidden = tuple(hidden)
 
-    def _setup_tower(self):
-        self.tower = MLP(dims=tuple(self.hidden), dtype=self.tower_dtype)
+    def _init_tower(self, key):
+        return {"tower": init_mlp(key, self.schema.total_dim, self.hidden)}
 
-    def forward_from_fields(self, fields, masks=None):
-        return self.tower(jnp.concatenate(fields, axis=1))[:, 0]
+    def forward_from_fields(self, p, fields, masks=None):
+        return mlp(p["tower"], jnp.concatenate(fields, axis=1), self.tower_dtype)[:, 0]
 
 
 class WideDeepRanker(RankerBase):
     """Wide (sum of column-0 slices + bias) + Deep MLP (``widedeep/model.py``)."""
 
-    wide_features: Tuple[str, ...] = ()
-    hidden: Sequence[int] = DEFAULT_HIDDEN
+    def __init__(self, *args, wide_features: Tuple[str, ...] = (),
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, **kw):
+        super().__init__(*args, **kw)
+        self.wide_features = tuple(wide_features)
+        self.hidden = tuple(hidden)
 
-    def _setup_tower(self):
-        self.tower = MLP(dims=tuple(self.hidden), dtype=self.tower_dtype)
-        self.bias = self.param("bias", nn.initializers.zeros, (1,))
+    def _init_tower(self, key):
+        n_wide = sum(1 for s in self.schema.specs if s.name in self.wide_features)
+        return {"tower": init_mlp(key, self.schema.total_dim - n_wide, self.hidden),
+                "bias": jnp.zeros((1,), jnp.float32)}
 
-    def forward_from_fields(self, fields, masks=None):
+    def forward_from_fields(self, p, fields, masks=None):
         wide_cols, deep_cols = [], []
         for spec, emb in zip(self.schema.specs, fields):
             if spec.name in self.wide_features:
@@ -131,115 +149,92 @@ class WideDeepRanker(RankerBase):
                 deep_cols.append(emb[:, 1:])
             else:
                 deep_cols.append(emb)
-        wide_out = jnp.sum(jnp.concatenate(wide_cols, axis=1), axis=1) + self.bias[0]
-        deep_out = self.tower(jnp.concatenate(deep_cols, axis=1))[:, 0]
+        wide_out = jnp.sum(jnp.concatenate(wide_cols, axis=1), axis=1) + p["bias"][0]
+        deep_out = mlp(p["tower"], jnp.concatenate(deep_cols, axis=1),
+                       self.tower_dtype)[:, 0]
         return wide_out + deep_out
+
+
+def _fm_terms(fields):
+    if len({e.shape[1] for e in fields}) != 1:
+        raise ValueError("FM requires equal embedding dims across fields")
+    w = jnp.concatenate([e[:, 0:1] for e in fields], axis=1)      # (B, nf)
+    v = jnp.stack([e[:, 1:] for e in fields], axis=1)             # (B, nf, d-1)
+    return jnp.sum(w, axis=1) + fm_second_order(v)
 
 
 class FMRanker(RankerBase):
     """Factorization machine on column-sliced embeddings (``fm/model.py``)."""
 
-    def _setup_tower(self):
-        self.bias = self.param("bias", nn.initializers.zeros, (1,))
+    def _init_tower(self, key):
+        return {"bias": jnp.zeros((1,), jnp.float32)}
 
-    def forward_from_fields(self, fields, masks=None):
-        from ..ops.fm_kernel import fm_second_order
-
-        dims = {e.shape[1] for e in fields}
-        assert len(dims) == 1, "FM requires equal embedding dims across fields"
-        w = jnp.concatenate([e[:, 0:1] for e in fields], axis=1)      # (B, nf)
-        v = jnp.stack([e[:, 1:] for e in fields], axis=1)             # (B, nf, d-1)
-        first = jnp.sum(w, axis=1)
-        second = fm_second_order(v)
-        return self.bias[0] + first + second
+    def forward_from_fields(self, p, fields, masks=None):
+        return p["bias"][0] + _fm_terms(fields)
 
 
-class DeepFMRanker(RankerBase):
+class DeepFMRanker(DeepRanker):
     """DeepFM: FM first+second order PLUS a deep MLP tower over the same
     shared embeddings, summed into one logit (Guo et al. 2017).
 
-    Named in the build target's config list ("DeepFM ranker: FM
-    second-order pairwise kernel + deep tower"); the reference zoo ships FM
-    and Deep separately (``src/model/sort/{fm,deep}``) — this combines them
-    on the shared-embedding contract: the FM part slices column 0 / columns
-    1.. exactly like :class:`FMRanker`, the deep part consumes the full
-    concat like :class:`DeepRanker`.
+    The reference zoo ships FM and Deep separately (``src/model/sort/{fm,deep}``);
+    this combines them on the shared-embedding contract: the FM part slices
+    column 0 / columns 1.. exactly like :class:`FMRanker`, the deep part
+    consumes the full concat like :class:`DeepRanker`.
     """
 
-    hidden: Sequence[int] = DEFAULT_HIDDEN
+    def _init_tower(self, key):
+        return {**super()._init_tower(key), "bias": jnp.zeros((1,), jnp.float32)}
 
-    def _setup_tower(self):
-        self.bias = self.param("bias", nn.initializers.zeros, (1,))
-        self.tower = MLP(dims=tuple(self.hidden), dtype=self.tower_dtype)
-
-    def forward_from_fields(self, fields, masks=None):
-        from ..ops.fm_kernel import fm_second_order
-
-        dims = {e.shape[1] for e in fields}
-        assert len(dims) == 1, "DeepFM requires equal embedding dims across fields"
-        w = jnp.concatenate([e[:, 0:1] for e in fields], axis=1)
-        v = jnp.stack([e[:, 1:] for e in fields], axis=1)
-        fm = jnp.sum(w, axis=1) + fm_second_order(v)
-        deep = self.tower(jnp.concatenate(fields, axis=1))[:, 0]
-        return self.bias[0] + fm + deep
+    def forward_from_fields(self, p, fields, masks=None):
+        deep = mlp(p["tower"], jnp.concatenate(fields, axis=1), self.tower_dtype)[:, 0]
+        return p["bias"][0] + _fm_terms(fields) + deep
 
 
-class CrossNetV1(nn.Module):
-    """Stacked DCN-v1 cross layers using the rank-1 identity (see module doc).
+class DCNRanker(DeepRanker):
+    """Cross net + MLP over concat[x, cross(x)] (``dcn/model.py:16-29``).
 
-    Routed through :func:`news_recsys_tpu.ops.dcn_kernel.dcn_cross_stack`:
-    XLA-fused chain by default (fastest in honest microbenchmarks at these
-    dims), fused Pallas kernel with ``NRT_PALLAS=on``. Param layout matches
-    the per-layer reference (w_i: (dim, 1), b_i: (dim,), ``dcn_arch.py:7-11``).
+    v1 cross params match the per-layer reference (w_i: (dim, 1), b_i: (dim,),
+    ``dcn_arch.py:7-11``); v2 stacks ``Linear(dim)`` layers with ReLU between
+    (``dcn_arch.py:69-90``).
     """
 
-    num_layers: int = 3
+    def __init__(self, *args, cross_layers: int = 3, cross_version: int = 1, **kw):
+        super().__init__(*args, **kw)
+        self.cross_layers = cross_layers
+        self.cross_version = cross_version
 
-    @nn.compact
-    def __call__(self, x0):
-        from ..ops.dcn_kernel import dcn_cross_stack
+    def _init_tower(self, key):
+        dim = self.schema.total_dim
+        k_cross, k_tower = jax.random.split(key)
+        keys = jax.random.split(k_cross, self.cross_layers)
+        if self.cross_version == 1:
+            # xavier_uniform over a (dim, 1) kernel: U(±sqrt(6 / (dim + 1)))
+            bound = math.sqrt(6.0 / (dim + 1))
+            cross = {}
+            for i, k in enumerate(keys):
+                cross[f"w_{i}"] = jax.random.uniform(k, (dim, 1), jnp.float32,
+                                                     -bound, bound)
+                cross[f"b_{i}"] = jnp.zeros((dim,), jnp.float32)
+        else:
+            cross = {f"Linear_{i}": init_linear(k, dim, dim) for i, k in enumerate(keys)}
+        return {"cross": cross, "tower": init_mlp(k_tower, 2 * dim, self.hidden)}
 
-        dim = x0.shape[-1]
-        ws, bs = [], []
-        for i in range(self.num_layers):
-            ws.append(self.param(f"w_{i}", nn.initializers.xavier_uniform(), (dim, 1)))
-            bs.append(self.param(f"b_{i}", nn.initializers.zeros, (dim,)))
-        ws = jnp.stack([w[:, 0] for w in ws])    # (NL, D)
-        bs = jnp.stack(bs)                       # (NL, D)
-        return dcn_cross_stack(x0, ws, bs)
-
-
-class CrossNetV2(nn.Module):
-    """Stacked DCN-v2 cross layers with ReLU between (``dcn_arch.py:69-90``)."""
-
-    num_layers: int = 3
-
-    @nn.compact
-    def __call__(self, x0):
-        dim = x0.shape[-1]
+    def _cross(self, p, x0):
+        if self.cross_version == 1:
+            ws = jnp.stack([p[f"w_{i}"][:, 0] for i in range(self.cross_layers)])
+            bs = jnp.stack([p[f"b_{i}"] for i in range(self.cross_layers)])
+            return cross_v1(x0, ws, bs)
         x = x0
-        for _ in range(self.num_layers):
-            x = x0 * Linear(dim)(x) + x
-            x = nn.relu(x)
+        for i in range(self.cross_layers):
+            x = jax.nn.relu(x0 * linear(p[f"Linear_{i}"], x) + x)
         return x
 
-
-class DCNRanker(RankerBase):
-    """Cross net + MLP over concat[x, cross(x)] (``dcn/model.py:16-29``)."""
-
-    cross_layers: int = 3
-    cross_version: int = 1
-    hidden: Sequence[int] = DEFAULT_HIDDEN
-
-    def _setup_tower(self):
-        cls = CrossNetV1 if self.cross_version == 1 else CrossNetV2
-        self.cross = cls(num_layers=self.cross_layers)
-        self.tower = MLP(dims=tuple(self.hidden), dtype=self.tower_dtype)
-
-    def forward_from_fields(self, fields, masks=None):
+    def forward_from_fields(self, p, fields, masks=None):
         x = jnp.concatenate(fields, axis=1)
-        cross = self.cross(x)
-        return self.tower(jnp.concatenate([x, cross], axis=1))[:, 0]
+        cross = self._cross(p["cross"], x)
+        return mlp(p["tower"], jnp.concatenate([x, cross], axis=1),
+                   self.tower_dtype)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -256,9 +251,9 @@ def build_ranker(cfg: Config, name: str | None = None) -> RankerBase:
                   compute_dtype=cfg.mesh.compute_dtype,
                   emb_init_scale=cfg.embeddings.init_scale)
     if name == "lr":
-        return LRRanker(tables=tables, schema=schema, **dtypes)
+        return LRRanker(tables, schema, **dtypes)
     if name == "deep":
-        return DeepRanker(tables=tables, schema=schema, **dtypes)
+        return DeepRanker(tables, schema, **dtypes)
     if name == "widedeep":
         wd = cfg.extra("wide_and_deep_cfg", {}) or {}
         wide = tuple(wd.get("wide_feature_names", ()))
@@ -268,20 +263,17 @@ def build_ranker(cfg: Config, name: str | None = None) -> RankerBase:
                 "widedeep requires wide_and_deep_cfg.wide_feature_names with at "
                 f"least one feature from the rank schema {schema.names}; got {wide!r}"
             )
-        return WideDeepRanker(tables=tables, schema=schema, wide_features=wide, **dtypes)
+        return WideDeepRanker(tables, schema, wide_features=wide, **dtypes)
     if name == "fm":
-        return FMRanker(tables=tables, schema=schema, **dtypes)
+        return FMRanker(tables, schema, **dtypes)
     if name == "deepfm":
-        return DeepFMRanker(tables=tables, schema=schema, **dtypes)
+        return DeepFMRanker(tables, schema, **dtypes)
     if name == "dcn":
         dcn = cfg.extra("dcn_cfg", {}) or {}
-        return DCNRanker(
-            tables=tables,
-            schema=schema,
-            cross_layers=int(dcn.get("num_layers", 3)),
-            cross_version=int(dcn.get("version", 1)),
-            **dtypes,
-        )
+        return DCNRanker(tables, schema,
+                         cross_layers=int(dcn.get("num_layers", 3)),
+                         cross_version=int(dcn.get("version", 1)),
+                         **dtypes)
     if name == "attention":
         from .seq_ranker import build_attention_ranker
         return build_attention_ranker(cfg)

@@ -23,53 +23,33 @@ field).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
-
 import jax
 import jax.numpy as jnp
 
-from ..config import Config, FeatureSchema, build_schema, table_specs
-from .layers import MLP, TransformerBlock
-from .rankers import DEFAULT_HIDDEN, RankerBase
+from ..config import Config, build_schema, table_specs
+from .layers import init_transformer_block, transformer_block
+from .rankers import DeepRanker
 
 
-class AttentionSeqRanker(RankerBase):
-    hist_feature: str = "hist"
-    num_layers: int = 1
-    num_heads: int = 2
-    ff_dim: int = 64
-    hidden: Sequence[int] = DEFAULT_HIDDEN
+class AttentionSeqRanker(DeepRanker):
+    def __init__(self, *args, hist_feature: str = "hist", num_layers: int = 1,
+                 num_heads: int = 2, ff_dim: int = 64, **kw):
+        super().__init__(*args, **kw)
+        self.hist_feature = hist_feature
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.ff_dim = ff_dim
 
-    def _setup_tower(self):
+    def _init_tower(self, key):
         # the schema spec survives table renames (share-aliasing, arena
         # packing); resolving the dim via the raw table name does not
         dim = self.schema[self.hist_feature].dim
-        self.blocks = [
-            TransformerBlock(embed_dim=dim, num_heads=self.num_heads, ff_dim=self.ff_dim)
-            for _ in range(self.num_layers)
-        ]
-        self.tower = MLP(dims=tuple(self.hidden), dtype=self.tower_dtype)
+        keys = jax.random.split(key, self.num_layers + 1)
+        blocks = {f"blocks_{i}": init_transformer_block(k, dim, self.ff_dim)
+                  for i, k in enumerate(keys[1:])}
+        return {**blocks, **super()._init_tower(keys[0])}
 
-    def _apply_block(self, blk, h, mask):
-        """One TransformerBlock — optionally via the fused Pallas kernel
-        (``ops.fused_attention``; default OFF from the measured e2e
-        negative result recorded there) with the flax module as the
-        production / init-time path."""
-        from ..ops.fused_attention import (fused_attention_mode,
-                                           fused_block_supported,
-                                           fused_transformer_block)
-
-        mode = fused_attention_mode()
-        L, D = h.shape[1], h.shape[2]
-        if (mode == "off" or self.is_initializing()
-                or h.dtype != jnp.float32 or blk.dropout != 0.0
-                or not fused_block_supported(L, D, blk.ff_dim, blk.num_heads)):
-            return blk(h, mask)
-        return fused_transformer_block(blk.variables["params"], h, mask,
-                                       num_heads=blk.num_heads,
-                                       interpret=mode == "interpret")
-
-    def forward_from_fields(self, fields, masks=None):
+    def forward_from_fields(self, p, fields, masks=None):
         names = list(self.schema.names)
         hist_i = names.index(self.hist_feature)
         target_i = names.index("item_id")
@@ -78,8 +58,8 @@ class AttentionSeqRanker(RankerBase):
         mask = (masks or {}).get(self.hist_feature)
         if mask is None:
             mask = jnp.ones(h.shape[:2], jnp.float32)
-        for blk in self.blocks:
-            h = self._apply_block(blk, h, mask)
+        for i in range(self.num_layers):
+            h = transformer_block(p[f"blocks_{i}"], h, self.num_heads, mask)
 
         # target-aware attention pooling
         target = fields[target_i]                                 # (B, D)
@@ -93,7 +73,7 @@ class AttentionSeqRanker(RankerBase):
 
         flat = [f for i, f in enumerate(fields) if i != hist_i]
         x = jnp.concatenate(flat + [seq_vec], axis=1)
-        return self.tower(x)[:, 0]
+        return super().forward_from_fields(p, [x])
 
 
 def build_attention_ranker(cfg: Config) -> AttentionSeqRanker:
@@ -108,8 +88,8 @@ def build_attention_ranker(cfg: Config) -> AttentionSeqRanker:
     if "item_id" not in rank_names:
         raise ValueError("attention ranker needs 'item_id' for target-aware pooling")
     return AttentionSeqRanker(
-        tables=tables,
-        schema=build_schema(cfg, rank_names),
+        tables,
+        build_schema(cfg, rank_names),
         unpooled_arrays=(hist_feature,),
         table_dtype=cfg.mesh.param_dtype,
         compute_dtype=cfg.mesh.compute_dtype,

@@ -3,7 +3,7 @@
 Two libraries under ``native/``:
 
 - ``ann_topk``: host-side exact inner-product top-k, the faiss-equivalent
-  serving primitive (the TPU path is :mod:`news_recsys_tpu.ops.topk`);
+  serving primitive (the device path is :mod:`news_recsys_tpu.ops.topk`);
 - ``text_parser``: one-pass C++ parser for the reference text feature
   format, replacing the reference's per-row Python parse
   (``data_reader.py:56-113``).
@@ -79,7 +79,7 @@ def load_ann() -> Optional[ctypes.CDLL]:
 
 
 class HostTopKSearcher:
-    """CPU exact IP top-k over a corpus snapshot (same API as the TPU
+    """CPU exact IP top-k over a corpus snapshot (same API as the device
     :class:`~news_recsys_tpu.ops.topk.TopKSearcher`)."""
 
     def __init__(self, normalize: bool = False, n_threads: int = 0):

@@ -1,10 +1,11 @@
 """Exact ANN search: batched matmul + top_k on device.
 
-TPU-native replacement for the reference's faiss ``IndexFlatIP`` wrapper
+Device replacement for the reference's faiss ``IndexFlatIP`` wrapper
 (``src/model/model_utils/TopKSearcher.py:19-83``) and DSSM's per-user faiss
-loop (``DSSM/model.py:186-228``): a ~65k x 16 corpus is tiny for the MXU, so
-exact inner-product top-k is one (B, D) x (D, N) matmul + ``jax.lax.top_k``
-per query batch — no external index, no host round-trips, exact results.
+loop (``DSSM/model.py:186-228``): a ~65k x 16 corpus is small, so exact
+inner-product top-k is one (B, D) x (D, N) matmul + ``jax.lax.top_k`` per
+query batch — no external index, no host round-trips. The matmul runs at
+JAX's default precision, which on a GPU may be TF32.
 """
 
 from __future__ import annotations

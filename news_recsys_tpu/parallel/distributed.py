@@ -1,20 +1,19 @@
 """Multi-host initialization + per-host data sharding helpers.
 
-The reference has no distributed communication at all (SURVEY §2.3). On TPU
-pods, multi-host SPMD needs:
+The reference has no distributed communication at all (SURVEY §2.3).
+Multi-host SPMD needs:
 
-1. ``jax.distributed.initialize()`` on every host (auto-detected on TPU
-   pods via the metadata server);
-2. a global mesh spanning all hosts' devices — collectives ride ICI within
-   a slice and DCN across slices, chosen by XLA from the same
-   ``PartitionSpec`` annotations used single-host;
+1. ``jax.distributed.initialize(coordinator, num_processes, process_id)`` on
+   every host;
+2. a global mesh spanning all hosts' devices — XLA chooses the collectives
+   from the same ``PartitionSpec`` annotations used single-host;
 3. per-host input feeding: each host loads its own slice of the global
    batch and :func:`host_local_batch_to_global` assembles the global
    sharded array (``jax.make_array_from_process_local_data``).
 
-These helpers cannot be exercised on single-host CI; the sharding program
-itself is validated by the CPU-mesh tests and the driver's
-``dryrun_multichip``.
+The sharding program itself is validated by the CPU-mesh tests and
+``__graft_entry__.dryrun_multichip``; ``tests/test_multihost.py`` runs two
+CPU processes over a local coordinator.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         if coordinator_address:
             jax.distributed.initialize(coordinator_address, num_processes, process_id)
         else:
-            jax.distributed.initialize()  # TPU pod auto-detection
+            jax.distributed.initialize()  # cluster environments JAX detects
         logger.info(
             f"distributed: process {jax.process_index()}/{jax.process_count()}, "
             f"{jax.local_device_count()} local / {jax.device_count()} global devices"

@@ -1,7 +1,7 @@
 """Device mesh + parameter sharding rules.
 
 The reference is strictly single-GPU (every trainer pins one device,
-``deep/train.py:42-43``); parallelism is new TPU-side capability:
+``deep/train.py:42-43``); parallelism is new capability:
 
 - a 2D ``('data', 'model')`` mesh: batches sharded over ``data``
   (data parallelism — gradients all-reduced by XLA), embedding tables

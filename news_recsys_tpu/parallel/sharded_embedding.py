@@ -32,7 +32,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 # Module-level active mesh for model code that cannot thread a Mesh through
-# (flax modules are static pytrees). Set by the Trainer.
+# (model methods take params, not a mesh). Set by the Trainer.
 _ACTIVE: Optional[tuple] = None  # (mesh, model_axis, data_axis)
 
 

@@ -8,7 +8,8 @@ dedup, on either backend:
 
 - ``backend="device"``: exact matmul + ``lax.top_k`` on the accelerator;
 - ``backend="host"``: the threaded C++ searcher (no accelerator needed);
-- ``backend="auto"``: device if one is available, else host.
+- ``backend="auto"``: device when JAX's default device is an accelerator,
+  host when it is the CPU.
 
 A trained Recommender persists as a single self-contained **bundle**
 directory (:meth:`Recommender.save` / :meth:`Recommender.load`): config +
@@ -27,18 +28,40 @@ from typing import List, Optional, Sequence, Tuple
 
 import jax
 import numpy as np
-import yaml
 
 from .config import Config, config_from_dict, config_to_dict
 from .data.packed_dataset import Batch, PackedDataset, iterate_batches
 from .models.dssm import DSSM, _l2
+from .training.checkpoint import load_tree, save_tree
 from .utils.logging import get_logger
 
 logger = get_logger("serving")
 
-BUNDLE_FORMAT_VERSION = 1
+# the bundle layout: config.json + params.npz + corpus.npz + meta.json
+BUNDLE_FORMAT_VERSION = 2
 _VOCAB_FILES = ("original_val_2_embedding_idx_dict.json",
                 "embedding_idx_2_original_val_dict.json")
+
+
+def _save_model(path: str, cfg: Config, params) -> None:
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1)
+    save_tree(os.path.join(path, "params.npz"), params)
+
+
+def _load_model(path: str):
+    with open(os.path.join(path, "config.json")) as f:
+        cfg = config_from_dict(json.load(f))
+    return cfg, load_tree(os.path.join(path, "params.npz"))
+
+
+def _read_meta(path: str) -> dict:
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if meta["format_version"] != BUNDLE_FORMAT_VERSION:
+        raise ValueError(f"Bundle {path} has format {meta['format_version']}; "
+                         f"this version reads format {BUNDLE_FORMAT_VERSION}")
+    return meta
 
 
 class Recommender:
@@ -64,10 +87,9 @@ class Recommender:
             self.item_ids = item_ds.arrays["item_id"].astype(np.int64)
 
         if backend == "auto":
-            try:
-                backend = "device" if jax.devices()[0].platform != "cpu" else "host"
-            except Exception:
-                backend = "host"
+            backend = "device" if jax.devices()[0].platform != "cpu" else "host"
+        if backend not in ("device", "host"):
+            raise ValueError(f"backend must be auto|device|host, got {backend!r}")
         self.backend = backend
         if backend == "host":
             from .native import HostTopKSearcher
@@ -83,20 +105,15 @@ class Recommender:
     def save(self, path: str) -> str:
         """Persist as a self-contained bundle directory.
 
-        Layout: ``config.yaml`` (full round-trippable config),
-        ``params.msgpack`` (tower + embedding params), ``corpus.npz``
+        Layout: ``config.json`` (full round-trippable config),
+        ``params.npz`` (tower + embedding params), ``corpus.npz``
         (L2-normalized item embeddings + item ids), ``meta.json``, and
         ``vocab/*.json`` (raw-value <-> embedding-id maps, copied from the
         feature-extraction output when present, for request-side decoding
         via :class:`~news_recsys_tpu.utils.feature_id_mapper.FeatureIdMapper`).
         """
-        from flax import serialization
-
         os.makedirs(path, exist_ok=True)
-        with open(os.path.join(path, "config.yaml"), "w") as f:
-            yaml.safe_dump(config_to_dict(self.cfg), f, sort_keys=False)
-        with open(os.path.join(path, "params.msgpack"), "wb") as f:
-            f.write(serialization.msgpack_serialize(jax.device_get(self.params)))
+        _save_model(path, self.cfg, self.params)
         np.savez_compressed(os.path.join(path, "corpus.npz"),
                             corpus=self.corpus, item_ids=self.item_ids)
         fe_dir = os.path.join(self.cfg.paths.out_basedir, "extractored_feature")
@@ -118,19 +135,10 @@ class Recommender:
     @classmethod
     def load(cls, path: str, backend: str = "auto", batch_size: int = 1024) -> "Recommender":
         """Restore a bundle saved by :meth:`save`; no item re-encode."""
-        from flax import serialization
-
         from .models.dssm import build_dssm
 
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
-        if meta["format_version"] > BUNDLE_FORMAT_VERSION:
-            raise ValueError(f"Bundle format {meta['format_version']} is newer "
-                             f"than supported {BUNDLE_FORMAT_VERSION}")
-        with open(os.path.join(path, "config.yaml")) as f:
-            cfg = config_from_dict(yaml.safe_load(f))
-        with open(os.path.join(path, "params.msgpack"), "rb") as f:
-            params = serialization.msgpack_restore(f.read())
+        _read_meta(path)
+        cfg, params = _load_model(path)
         with np.load(os.path.join(path, "corpus.npz")) as z:
             corpus, item_ids = z["corpus"], z["item_ids"]
         model = build_dssm(cfg)
@@ -207,19 +215,13 @@ class CascadeRecommender:
 
     def save(self, path: str) -> str:
         """Bundle layout: ``recall/`` (a full :class:`Recommender` bundle) +
-        ``ranker/{config.yaml, params.msgpack}`` + ``item_features.npz`` +
+        ``ranker/{config.json, params.npz}`` + ``item_features.npz`` +
         ``meta.json``."""
-        from flax import serialization
-
         os.makedirs(path, exist_ok=True)
         self.recall.save(os.path.join(path, "recall"))
         rdir = os.path.join(path, "ranker")
         os.makedirs(rdir, exist_ok=True)
-        with open(os.path.join(rdir, "config.yaml"), "w") as f:
-            yaml.safe_dump(config_to_dict(self.ranker_cfg), f, sort_keys=False)
-        with open(os.path.join(rdir, "params.msgpack"), "wb") as f:
-            f.write(serialization.msgpack_serialize(
-                jax.device_get(self.ranker_params)))
+        _save_model(rdir, self.ranker_cfg, self.ranker_params)
         np.savez_compressed(os.path.join(path, "item_features.npz"),
                             **self.item_arrays)
         with open(os.path.join(path, "meta.json"), "w") as f:
@@ -232,19 +234,13 @@ class CascadeRecommender:
     @classmethod
     def load(cls, path: str, backend: str = "auto",
              fetch: Optional[int] = None) -> "CascadeRecommender":
-        from flax import serialization
-
         from .models.rankers import build_ranker
 
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
+        meta = _read_meta(path)
         if meta.get("kind") != "cascade":
             raise ValueError(f"{path} is not a cascade bundle")
         recall = Recommender.load(os.path.join(path, "recall"), backend=backend)
-        with open(os.path.join(path, "ranker", "config.yaml")) as f:
-            rcfg = config_from_dict(yaml.safe_load(f))
-        with open(os.path.join(path, "ranker", "params.msgpack"), "rb") as f:
-            rparams = serialization.msgpack_restore(f.read())
+        rcfg, rparams = _load_model(os.path.join(path, "ranker"))
         with np.load(os.path.join(path, "item_features.npz")) as z:
             item_ds = PackedDataset({k: z[k] for k in z.files})
         model = build_ranker(rcfg, rcfg.name)
@@ -307,10 +303,8 @@ class CascadeRecommender:
 def build_cascade(recall_bundle: str, ranker_ckpt: str, ranker_config: str,
                   fetch: int = 100, backend: str = "auto") -> CascadeRecommender:
     """Compose a cascade from a saved recall bundle + a trained ranker
-    checkpoint (``epoch_*.msgpack`` or an experiment dir) + its config;
+    checkpoint (``epoch_*.npz`` or an experiment dir) + its config;
     item features come from the config's extracted item split."""
-    from flax import serialization
-
     from .config import load_config
     from .models.rankers import build_ranker
 
@@ -319,8 +313,7 @@ def build_cascade(recall_bundle: str, ranker_ckpt: str, ranker_config: str,
     from .cli import _resolve_ckpt
     ckpt = _resolve_ckpt(ranker_ckpt)
     model = build_ranker(rcfg, rcfg.name)
-    with open(ckpt, "rb") as f:
-        tree = serialization.msgpack_restore(f.read())
+    tree = load_tree(ckpt)
     rparams = tree["params"] if "params" in tree and "step" in tree else tree
     item_ds = PackedDataset.open_split(rcfg, "item")
     return CascadeRecommender(recall, rcfg, model, rparams, item_ds, fetch=fetch)

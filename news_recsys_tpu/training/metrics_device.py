@@ -3,7 +3,7 @@
 Same math as :mod:`news_recsys_tpu.training.metrics` (which itself has exact
 parity with the reference's Python loop), expressed entirely in fixed-shape
 XLA ops: one lexsort + segment reductions — so a multi-million-row dev
-split's AUC/GAUC/NDCG/HR/MRR block computes on the TPU in milliseconds
+split's AUC/GAUC/NDCG/HR/MRR block computes on the device in one jit
 instead of a host pass. Cohorts (Overall / Warm / Cold) are computed in one
 shot from a per-row warm mask.
 

@@ -35,6 +35,7 @@ from ..data.packed_dataset import PackedDataset
 from ..models.dssm import DSSM, dssm_train_loss, _l2
 from ..ops.topk import TopKSearcher
 from ..utils.logging import get_logger
+from .checkpoint import restore_tree, save_tree
 from .trainer import Trainer, TrainState
 
 logger = get_logger("retrieval")
@@ -316,8 +317,7 @@ class DSSMTrainer(Trainer):
         ModelCheckpoint(save_top_k=-1, save_weights_only=True),
         ``DSSM/train.py:54-60``). Full-state resume uses the inherited Orbax
         path (``ckpt_every_steps`` + ``fit(resume=True)``)."""
-        from flax import serialization
-        path = os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.msgpack")
+        path = os.path.join(self.ckpt_dir, f"epoch_{epoch:03d}.npz")
         if jax.process_count() > 1:
             from ..parallel.distributed import fetch_pytree_to_host
             host_params = fetch_pytree_to_host(state.params, self.mesh)
@@ -325,15 +325,10 @@ class DSSMTrainer(Trainer):
                 return path
         else:
             host_params = jax.device_get(state.params)
-        with open(path, "wb") as f:
-            f.write(serialization.to_bytes(host_params))
-        return path
+        return save_tree(path, host_params)
 
     def load_params(self, state, path: str):
-        from flax import serialization
-        with open(path, "rb") as f:
-            restored = serialization.from_bytes(jax.device_get(state.params), f.read())
-        return state.replace(params=restored)
+        return state.replace(params=restore_tree(path, jax.device_get(state.params)))
 
     # -- encoding ------------------------------------------------------------
 

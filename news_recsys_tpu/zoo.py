@@ -23,8 +23,8 @@ def mind_config(name: str = "dcn", batch_size: int = 512, equal_dims: bool = Fal
                 param_dtype: str = "float32", compute_dtype: str = "float32",
                 embedding_optimizer: str = "adamw",
                 embedding_update_period: int = 1,
-                # measured default: +5% DCN e2e from grouped dedup + single
-                # update scatter (artifacts/arena_step_ab_r05.json)
+                # on by default; whether packing pays on the H100 is not
+                # measured yet
                 arena_tables: bool = True) -> Config:
     emb = {k: 16 for k in MIND_FEATURES} if equal_dims else dict(MIND_EMB_SIZE)
     return config_from_dict({
@@ -82,6 +82,16 @@ def attention_config(batch_size: int = 512, hist_len: int = ATTENTION_HIST_LEN,
         "attention_cfg": {"hist_feature": "hist", "num_layers": 1,
                           "num_heads": 2, "ff_dim": 64},
     })
+
+
+def ranking_arrays(rows: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Synthetic MIND-shaped ranking rows: uniform ids over each table, 10%
+    positive labels."""
+    rng = np.random.default_rng(seed)
+    arrays = {name: rng.integers(1, MIND_TABLE_SIZE[name], rows).astype(np.int32)
+              for name in MIND_FEATURES}
+    arrays["label"] = (rng.random(rows) < 0.1).astype(np.float32).reshape(-1, 1)
+    return arrays
 
 
 def attention_arrays(rows: int, hist_len: int = ATTENTION_HIST_LEN,

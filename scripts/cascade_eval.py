@@ -8,7 +8,7 @@ production shape named in the build target.
 Usage:
     python scripts/cascade_eval.py \
         --recall-cfg /tmp/fullscale_r05s/dssm_aug+logq+ns8.yaml \
-        --recall-ckpt /tmp/fullscale_r05s/exp_dssm_aug+logq+ns8/ckpts/epoch_024.msgpack \
+        --recall-ckpt /tmp/fullscale_r05s/exp_dssm_aug+logq+ns8/ckpts/epoch_024.npz \
         --ranker-cfg /tmp/fullscale_r04/dcn.yaml \
         --ranker-ckpt /tmp/fullscale_r04/exp_dcn \
         --out artifacts/cascade_eval_r05.json
@@ -25,10 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 
-def load_params_msgpack(path):
-    from flax import serialization
-    with open(path, "rb") as f:
-        tree = serialization.msgpack_restore(f.read())
+def load_params(path):
+    from news_recsys_tpu.training.checkpoint import load_tree
+    tree = load_tree(path)
     return tree["params"] if "params" in tree and "step" in tree else tree
 
 
@@ -36,10 +35,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--recall-cfg", required=True)
     ap.add_argument("--recall-ckpt", required=True,
-                    help="DSSM params msgpack (weight-only per-epoch ckpt)")
+                    help="DSSM params .npz (weight-only per-epoch ckpt)")
     ap.add_argument("--ranker-cfg", required=True)
     ap.add_argument("--ranker-ckpt", required=True,
-                    help="ranker epoch_*.msgpack or experiment dir")
+                    help="ranker epoch_*.npz or experiment dir")
     ap.add_argument("--fetch", type=int, default=100)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--chunk", type=int, default=2048)
@@ -58,13 +57,13 @@ def main():
 
     rc_cfg = load_config(args.recall_cfg)
     dssm = build_dssm(rc_cfg)
-    dssm_params = load_params_msgpack(args.recall_ckpt)
+    dssm_params = load_params(args.recall_ckpt)
     item_ds = PackedDataset.open_split(rc_cfg, "item")
     recall = Recommender(rc_cfg, dssm, dssm_params, item_ds)
 
     rk_cfg = load_config(args.ranker_cfg)
     ranker = build_ranker(rk_cfg, rk_cfg.name)
-    rk_params = load_params_msgpack(_resolve_ckpt(args.ranker_ckpt))
+    rk_params = load_params(_resolve_ckpt(args.ranker_ckpt))
     rk_item_ds = PackedDataset.open_split(rk_cfg, "item")
     casc = CascadeRecommender(recall, rk_cfg, ranker, rk_params, rk_item_ds,
                               fetch=args.fetch)

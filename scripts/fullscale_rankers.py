@@ -81,9 +81,9 @@ def run_model(name: str, config: str, epochs: int, workdir: str, optimizer: str,
         # dim-1 biases; FM: quadratic form), so the torch-default N(0,1)
         # init starts them deep in sigmoid saturation (FM init logit std
         # ~15; rowwise-AdaGrad's decaying step can never escape it, AdamW
-        # only at ~lr/element/step). The measured fix is a small init —
-        # warm AUC 0.53 -> 0.78 at the reference recipe lr
-        # (artifacts/fm_diagnosis_r05.json) — which also makes the shallow
+        # only at ~lr/element/step). The fix is a small init — FM warm AUC
+        # 0.5272 -> 0.7824 at the reference recipe lr
+        # (artifacts/fullscale_r0{4,5}/fm_val_log.log) — which also makes the shallow
         # rows optimizer-agnostic, so "auto" is rowwise_adagrad everywhere.
         raw["embeddings"]["init_scale"] = 0.03
     if optimizer == "auto":
@@ -240,9 +240,11 @@ def main():
         shutil.copy(os.path.join(res.pop("exp_dir"), "val_log.log"),
                     os.path.join(args.val_logs, f"{res['model']}_val_log.log"))
 
-    import jax
     artifact = {
-        "backend": jax.devices()[0].platform,
+        # read from a child: this process stays off the accelerator
+        "backend": subprocess.run(
+            [sys.executable, "-c", "import jax; print(jax.devices()[0].platform)"],
+            capture_output=True, text=True, check=True).stdout.strip(),
         "data": "learnable synthetic MIND at reference scale "
                 "(65.2k news / 94k users, latent-factor click model; "
                 "news_recsys_tpu/data/synthetic.py)",

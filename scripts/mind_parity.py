@@ -19,8 +19,8 @@ Steps:
 4. train each model (deep, dcn, attention by default) on the reference
    recipe via the CLI; best epoch by Warm-Start AUC (the reference's
    criterion, ``log_analysis.py:86-98``).
-5. reload the best epoch's checkpoint, score dev, and emit the
-   reference-format table (AUC pooled; MRR@10 / nDCG@5 / nDCG@10 as
+5. score dev with the best epoch's checkpoint through the CLI's
+   ``predict`` in a child process, and emit the reference-format table (AUC pooled; MRR@10 / nDCG@5 / nDCG@10 as
    per-user means, matching ``base_model.py:333-492`` grouping).
 """
 
@@ -179,41 +179,39 @@ def per_user_ranking_metrics(uids, scores, labels):
             "nDCG@10": float(np.mean(ndcg10))}
 
 
-def train_and_score(name: str, cfg_path: str, workdir: str, epochs: int) -> dict:
-    from news_recsys_tpu.config import load_config
-    from news_recsys_tpu.data.packed_dataset import PackedDataset
-    from news_recsys_tpu.models.rankers import build_ranker
-    from news_recsys_tpu.training.trainer import Trainer
-    from news_recsys_tpu.utils.log_analysis import best_epoch, parse_log
-
-    exp_dir = os.path.join(workdir, f"exp_{name}")
-    t0 = time.time()
+def _run_cli(args, what: str) -> None:
     proc = subprocess.run(
-        [sys.executable, "-m", "news_recsys_tpu", "train", "-c", cfg_path,
-         "-m", name, "--workdir", exp_dir, "--epochs", str(epochs)],
+        [sys.executable, "-m", "news_recsys_tpu", *args],
         capture_output=True, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     if proc.returncode != 0:
         print(proc.stdout[-3000:]); print(proc.stderr[-3000:])
-        raise RuntimeError(f"{name} training failed")
+        raise RuntimeError(f"{what} failed")
+
+
+def train_and_score(name: str, cfg_path: str, workdir: str, epochs: int) -> dict:
+    """Train and score in child processes, one after the other: this
+    process never opens the accelerator, so each child has it to itself."""
+    from news_recsys_tpu.config import load_config
+    from news_recsys_tpu.data.packed_dataset import PackedDataset
+    from news_recsys_tpu.utils.log_analysis import best_epoch, parse_log
+
+    exp_dir = os.path.join(workdir, f"exp_{name}")
+    t0 = time.time()
+    _run_cli(["train", "-c", cfg_path, "-m", name, "--workdir", exp_dir,
+              "--epochs", str(epochs)], f"{name} training")
     wall = time.time() - t0
     best = best_epoch(parse_log(os.path.join(exp_dir, "val_log.log")))
 
-    cfg = load_config(cfg_path)
-    dev = PackedDataset.open_split(cfg, "dev")
-    model = build_ranker(cfg, name)
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        tr = Trainer(cfg, model, workdir=tmp, use_mesh=False)
-        sample = dev.take(np.arange(cfg.dataset.batch_size) % len(dev))
-        sample["_valid"] = np.ones(cfg.dataset.batch_size, np.float32)
-        state = tr.init_state(sample)
-        ckpt = os.path.join(exp_dir, "ckpts", f"epoch_{best['epoch']:03d}.msgpack")
-        state = tr.load_checkpoint(state, ckpt)
-        scores = tr.predict(state.params, dev)
+    ckpt = os.path.join(exp_dir, "ckpts", f"epoch_{best['epoch']:03d}.npz")
+    preds = os.path.join(exp_dir, "dev_predictions.jsonl")
+    _run_cli(["predict", "-c", cfg_path, "-m", name, "--checkpoint", ckpt,
+              "--split", "dev", "--output", preds, "--no-mesh"], f"{name} scoring")
+    with open(preds) as f:
+        scores = np.asarray([json.loads(line)["score"] for line in f], np.float32)
+    dev = PackedDataset.open_split(load_config(cfg_path), "dev")
     table = per_user_ranking_metrics(dev.arrays["user_id"].astype(np.int64),
-                                     np.asarray(scores),
-                                     dev.arrays["label"][:, 0])
+                                     scores, dev.arrays["label"][:, 0])
     return {"model": name, "best_epoch": best["epoch"], "wall_seconds": round(wall, 1),
             "warm_auc_best": best["data"].get("Warm Start Users", {}).get("AUC"),
             **{k: round(v, 5) for k, v in table.items()}}

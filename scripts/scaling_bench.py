@@ -3,7 +3,7 @@
 Measures the same workload as ``bench.py`` (full Trainer epoch, synthetic
 MIND-scale data) over a data-parallel mesh of 1..N devices and reports
 examples/s, examples/s/chip, and scaling efficiency vs the single-device
-run (BASELINE.json target: >=80% efficiency at 2 hosts).
+run.
 
 Single-host sweep over local devices (real chips, or a virtual CPU mesh):
 
@@ -15,9 +15,6 @@ Multi-host (run ONE copy per host; prints on process 0):
 
     python scripts/scaling_bench.py --coordinator host0:1234 \
         --num-processes 2 --process-id $ID
-
-On TPU pods with a metadata server, omit the coordinator flags
-(``jax.distributed.initialize`` auto-detects).
 
 Output: one JSON line per measured device count.
 """

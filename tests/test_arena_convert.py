@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from news_recsys_tpu.models.rankers import build_ranker
-from news_recsys_tpu.training.arena_convert import convert_msgpack, convert_tree
+from news_recsys_tpu.training.arena_convert import convert_checkpoint, convert_tree
 from news_recsys_tpu.training.trainer import Trainer
 
 from test_arena import make_cfg, make_ds
@@ -33,8 +33,8 @@ def test_convert_roundtrip_predict_parity(tmp_path, optimizer):
     tr_off, state_off, ds = _train(cfg_off, tmp_path / "off")
     ckpt = tr_off.save_checkpoint(state_off, epoch=1)
 
-    conv = str(tmp_path / "conv.msgpack")
-    convert_msgpack(cfg_on, ckpt, conv, to_arena=True)
+    conv = str(tmp_path / "conv.npz")
+    convert_checkpoint(cfg_on, ckpt, conv, to_arena=True)
 
     model_on = build_ranker(cfg_on, "deep")
     tr_on = Trainer(cfg_on, model_on, workdir=str(tmp_path / "on"), use_mesh=False)
@@ -46,8 +46,8 @@ def test_convert_roundtrip_predict_parity(tmp_path, optimizer):
                                rtol=1e-6, atol=1e-6)
 
     # round trip back: real rows of every table bit-exact
-    back = str(tmp_path / "back.msgpack")
-    convert_msgpack(cfg_on, conv, back, to_arena=False)
+    back = str(tmp_path / "back.npz")
+    convert_checkpoint(cfg_on, conv, back, to_arena=False)
     state_back = tr_off.init_state(ds.take(np.arange(64)))
     state_back = tr_off.load_checkpoint(state_back, back)
     emb_a = state_off.params["params"]["embedder"]
@@ -65,8 +65,8 @@ def test_convert_then_continue_training_matches(tmp_path):
     cfg_off, cfg_on = make_cfg(False), make_cfg(True)
     tr_off, state_off, ds = _train(cfg_off, tmp_path / "off", epochs=2)
     ckpt = tr_off.save_checkpoint(state_off, epoch=1)
-    conv = str(tmp_path / "conv.msgpack")
-    convert_msgpack(cfg_on, ckpt, conv, to_arena=True)
+    conv = str(tmp_path / "conv.npz")
+    convert_checkpoint(cfg_on, ckpt, conv, to_arena=True)
 
     model_on = build_ranker(cfg_on, "deep")
     tr_on = Trainer(cfg_on, model_on, workdir=str(tmp_path / "on"), use_mesh=False)
@@ -109,7 +109,7 @@ def test_convert_tree_handles_sparse_state_moments():
 
 def test_convert_ckpt_cli(tmp_path):
     """CLI surface: convert-ckpt writes a loadable arena checkpoint."""
-    import yaml
+    import json
 
     from news_recsys_tpu.cli import main
     from news_recsys_tpu.config import config_to_dict
@@ -117,10 +117,10 @@ def test_convert_ckpt_cli(tmp_path):
     cfg_off, cfg_on = make_cfg(False), make_cfg(True)
     tr_off, state_off, ds = _train(cfg_off, tmp_path / "off", epochs=1)
     ckpt = tr_off.save_checkpoint(state_off, epoch=0)
-    cfg_path = str(tmp_path / "cfg.yaml")
+    cfg_path = str(tmp_path / "cfg.json")
     with open(cfg_path, "w") as f:
-        yaml.safe_dump(config_to_dict(cfg_on), f)
-    out = str(tmp_path / "arena.msgpack")
+        json.dump(config_to_dict(cfg_on), f)
+    out = str(tmp_path / "arena.npz")
     main(["convert-ckpt", "-c", cfg_path, "--input", ckpt, "--output", out,
           "--to", "arena"])
     assert os.path.exists(out)

@@ -113,7 +113,7 @@ def test_cli_predict_matches_validate(workspace, capsys, tmp_path):
     sample["_valid"] = np.ones(cfg.dataset.batch_size, np.float32)
     state = trainer.init_state(sample)
     import glob
-    ckpt = sorted(glob.glob(os.path.join(workdir, "ckpts", "epoch_*.msgpack")))[-1]
+    ckpt = sorted(glob.glob(os.path.join(workdir, "ckpts", "epoch_*.npz")))[-1]
     state = trainer.load_checkpoint(state, ckpt)
     res2 = trainer.validate(state, dev, epoch=0)
     assert abs(res["Overall"]["AUC"] - res2["Overall"]["AUC"]) < 1e-6

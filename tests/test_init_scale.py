@@ -1,6 +1,6 @@
 """embeddings.init_scale: the saturation-escape knob for LR/FM.
 
-Mechanism (artifacts/fm_diagnosis_r05.json): shallow models score DIRECTLY
+Mechanism (scripts/fm_diagnosis.py): shallow models score DIRECTLY
 from raw embeddings, so the torch-default N(0,1) init (reference parity)
 puts FM's initial logit at std ~15 — predictions start saturated and
 rowwise AdaGrad's decaying step can never walk the ~16 latent dims back

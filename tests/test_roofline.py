@@ -1,13 +1,18 @@
-"""Roofline accounting (utils/roofline.py): XLA cost extraction and the
-utilisation arithmetic — runs on the forced-CPU test backend, where
-``device_peaks`` must return None and ``step_utilisation`` must degrade to
-the raw per-step numbers."""
+"""Roofline accounting (utils/roofline.py): XLA cost extraction, the H100
+peak lookup and the utilisation arithmetic. A device without published
+peaks is an error, never a silently missing field."""
 
 import jax
 import jax.numpy as jnp
+import pytest
 
 from news_recsys_tpu.utils.roofline import (compiled_cost, device_peaks,
                                             step_utilisation)
+
+
+class FakeDev:
+    def __init__(self, kind):
+        self.device_kind = kind
 
 
 def test_compiled_cost_matmul():
@@ -24,22 +29,25 @@ def test_compiled_cost_matmul():
 
 
 def test_device_peaks_unknown_on_cpu():
-    assert device_peaks(jax.devices("cpu")[0]) is None
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(jax.devices("cpu")[0])
+
+
+def test_device_peaks_h100():
+    peaks = device_peaks(FakeDev("NVIDIA H100 80GB HBM3"))
+    assert peaks == {"device_kind": "NVIDIA H100 80GB HBM3",
+                     "peak_flops": 989e12, "peak_hbm_bw": 3.35e12}
 
 
 def test_step_utilisation_known_chip():
-    class FakeDev:
-        device_kind = "TPU v5 lite"
-
-    # 1 GFLOP + 1 MB in 1 ms on a v5e: mfu = 1e9/1e-3/197e12, bw = 1e6/1e-3/819e9
-    out = step_utilisation(1e9, 1e6, 1e-3, device=FakeDev())
-    assert out["device"] == "TPU v5 lite"
-    assert abs(out["mfu_pct"] - 100 * 1e12 / 197e12) < 0.01
-    assert abs(out["hbm_bw_util_pct"] - 100 * 1e9 / 819e9) < 0.05
-    assert out["step_time_us"] == 1000.0
+    # 1 GFLOP + 1 MB in 1 ms on an H100: mfu = 1e12/989e12, bw = 1e9/3.35e12
+    out = step_utilisation(1e9, 1e6, 1e-3, device=FakeDev("NVIDIA H100 80GB HBM3"))
+    assert out["device"] == "NVIDIA H100 80GB HBM3"
+    assert out["mfu_pct"] == pytest.approx(100 * 1e12 / 989e12)
+    assert out["hbm_bw_util_pct"] == pytest.approx(100 * 1e9 / 3.35e12)
+    assert out["step_time_us"] == pytest.approx(1000.0)
 
 
 def test_step_utilisation_unknown_chip():
-    out = step_utilisation(1e9, 1e6, 1e-3, device=jax.devices("cpu")[0])
-    assert "mfu_pct" not in out and "device" not in out
-    assert out["flops_per_step"] == 1e9
+    with pytest.raises(KeyError):
+        step_utilisation(1e9, 1e6, 1e-3, device=jax.devices("cpu")[0])

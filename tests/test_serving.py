@@ -57,7 +57,7 @@ def test_recommend_history_dedup(trained):
 def test_dssm_epoch_checkpoints(trained):
     cfg, model, state, item_ds, trainer = trained
     import glob, os
-    ckpts = sorted(glob.glob(os.path.join(trainer.ckpt_dir, "epoch_*.msgpack")))
+    ckpts = sorted(glob.glob(os.path.join(trainer.ckpt_dir, "epoch_*.npz")))
     assert len(ckpts) == 10  # one per epoch, full history
     restored = trainer.load_params(state, ckpts[-1])
     a = np.asarray(jax_tree_first(state.params))
@@ -81,7 +81,7 @@ def test_bundle_roundtrip(trained, tmp_path):
 
     bundle = rec.save(str(tmp_path / "bundle"))
     import os
-    for fname in ("config.yaml", "params.msgpack", "corpus.npz", "meta.json"):
+    for fname in ("config.json", "params.npz", "corpus.npz", "meta.json"):
         assert os.path.exists(os.path.join(bundle, fname)), fname
 
     rec2 = Recommender.load(bundle, backend="host")

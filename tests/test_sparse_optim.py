@@ -56,7 +56,7 @@ def test_dedup_rows():
 
 
 def test_dedup_rows_matmul_parity():
-    """Sort-free MXU dedup == sort dedup, up to slot permutation.
+    """Sort-free matmul dedup == sort dedup, up to slot permutation.
 
     The two paths place active slots at different positions (first
     occurrence vs sorted order) but must agree on the {row: summed grad}
@@ -289,21 +289,19 @@ def test_sparse_with_model_parallel_tables(tmp_path):
 
 def test_dedup_rows_packed_sort_parity():
     """Packed single-operand uint32 sort == two-operand argsort path,
-    slot-for-slot (both layouts): the low index bits reproduce argsort's
-    stable tie order exactly."""
+    slot-for-slot: the low index bits reproduce argsort's stable tie
+    order exactly."""
     rng = np.random.default_rng(19)
     for n, max_id in ((100, 500), (1024, 65239), (4096, 160000)):
         ids = rng.integers(0, max_id + 1, n).astype(np.int32)
         ids[rng.random(n) < 0.15] = 0          # padding ids
         grads = rng.standard_normal((n, 8)).astype(np.float32)
-        for layout in ("xla", "sorted"):
-            ref = _dedup_rows(jnp.asarray(ids), jnp.asarray(grads),
-                              spare_row=max_id + 7, layout=layout)
-            got = _dedup_rows(jnp.asarray(ids), jnp.asarray(grads),
-                              spare_row=max_id + 7, layout=layout,
-                              max_id=max_id)
-            for r, g in zip(ref, got):
-                np.testing.assert_array_equal(np.asarray(r), np.asarray(g))
+        ref = _dedup_rows(jnp.asarray(ids), jnp.asarray(grads),
+                          spare_row=max_id + 7)
+        got = _dedup_rows(jnp.asarray(ids), jnp.asarray(grads),
+                          spare_row=max_id + 7, max_id=max_id)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(np.asarray(r), np.asarray(g))
 
 
 def make_cfg_k(k, optimizer="rowwise_adagrad", lr=5e-3):
